@@ -1,7 +1,7 @@
 """Multi-device example: solve A @ X == B over a JAX device mesh.
 
 The reference library is single-GPU (tfqmrgpu_handle.hxx:4-6); the mesh
-layer is new TPU-native territory (SURVEY.md section 5.8).  This example
+layer is new territory (SURVEY.md section 5.8).  This example
 shards block rows of A, X, B over all local devices with
 ``solve_sharded`` and then refines the float32 mesh solve to f64
 residuals with ``precision='m'``.
@@ -10,7 +10,7 @@ Run on a simulated 8-device CPU mesh:
   PYTHONPATH=. JAX_PLATFORMS=cpu \
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   python examples/tfqmrgpu_sharded_example.py
-On a real TPU pod slice, run it unchanged (devices are auto-detected).
+On several GPUs, run it unchanged (devices are auto-detected).
 """
 
 import numpy as np
@@ -48,7 +48,7 @@ b_data = (rng.standard_normal((ncols, lm, ln))
 b = tq.Bsr(mb, ncols, bptr, np.arange(ncols),
            b_data.astype(np.complex128), name="B")
 
-# float32 mesh solve (auto-picks the rowtile or pairs engine)
+# float32 mesh solve (auto-picks the panel or block-list engine)
 xc, info = solve_sharded(a, x, b, tolerance=1e-5, max_iterations=300)
 print(f"sharded c: engine={info['engine']} iters={info['iterations']} "
       f"residuum={info['residuum']:.2e}")

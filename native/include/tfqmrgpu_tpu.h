@@ -1,10 +1,10 @@
-/* tfqmrgpu_tpu: C API of the TPU-native block-sparse tfQMR framework.
+/* tfqmrgpu_tpu: C API of the JAX block-sparse tfQMR framework.
  *
  * Function-for-function parity with the reference CUDA library's C surface
  * (reference: tfQMRgpu/include/tfqmrgpu.h:16-156): the same 10-step
  * plan-based workflow, the same status-code vocabulary and packing, the same
  * data layouts.  The implementation (native/src/capi.cpp) drives the JAX/XLA
- * TPU solver through an embedded CPython interpreter; handles and plans are
+ * solver through an embedded CPython interpreter; handles and plans are
  * integer ids handed out by the Python registry (tfqmrgpu_tpu/api.py).
  *
  * Differences from the reference, by design:

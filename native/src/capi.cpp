@@ -1,7 +1,7 @@
-// C API of the TPU-native tfQMR framework (see include/tfqmrgpu_tpu.h).
+// C API of the JAX tfQMR framework (see include/tfqmrgpu_tpu.h).
 //
 // The reference implements its C API directly over CUDA
-// (tfQMRgpu/source/tfqmrgpu.cu); here the compute path is JAX/XLA on TPU, so
+// (tfQMRgpu/source/tfqmrgpu.cu); here the compute path is JAX/XLA, so
 // this translation unit embeds CPython and forwards every call to the
 // marshalling bridge (tfqmrgpu_tpu/capi_bridge.py), which drives the parity
 // layer (tfqmrgpu_tpu/api.py).  The embedded side stays minimal: one

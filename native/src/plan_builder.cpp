@@ -1,4 +1,4 @@
-// Native analysis step ("createPlan") for the TPU tfQMR framework.
+// Native analysis step ("createPlan") for the JAX tfQMR framework.
 //
 // Reproduces the semantics of the reference's host-side plan construction
 // (reference: tfQMRgpu/source/tfqmrgpu.cu:136-351):

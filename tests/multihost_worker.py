@@ -1,6 +1,6 @@
 """Worker for the multi-host parity test: one JAX process of a simulated
 2-process x 4-device CPU cluster solving the shared fixed problem through
-ShardedPairsSolver.  Usage: multihost_worker.py <pid> <nproc> <port> <out>
+ShardedBlockListSolver.  Usage: multihost_worker.py <pid> <nproc> <port> <out>
 (SURVEY.md section 7: multi-host parity vs 1-host via multi-process CPU
 simulation)."""
 
@@ -26,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from conftest import make_random_problem  # noqa: E402
 
 from tfqmrgpu_tpu.plan import create_plan  # noqa: E402
-from tfqmrgpu_tpu.parallel.sharded_pairs import ShardedPairsSolver  # noqa: E402
+from tfqmrgpu_tpu.parallel import ShardedBlockListSolver  # noqa: E402
 
 rng = np.random.default_rng(123)
 lm = ln = 4
@@ -35,7 +35,7 @@ a, x, b = make_random_problem(rng, mb=16, lm=lm, ln=ln, ncols=3,
 plan = create_plan(a, x, b)
 plan.lm, plan.ln = lm, ln
 mesh = mh.global_mesh(pr=jax.device_count())
-sp = ShardedPairsSolver(plan, mesh, interpret=True)
+sp = ShardedBlockListSolver(plan, mesh)
 xsol, info = sp.solve(a.data.real.astype(np.float32),
                       a.data.imag.astype(np.float32),
                       b.data.real.astype(np.float32),

@@ -30,12 +30,15 @@ def test_autotune_picks_working_solver_and_caches(rng, tune_cache):
     lm, ln = 4, 8
     a, x, b = make_random_problem(rng, mb=10, lm=lm, ln=ln, ncols=3,
                                   x_fill=1.0, dtype=np.complex64)
-    cands = [("dense", {}), ("xla", {}),
-             ("pairs", {"TFQ_PAIRS_RTILE": "1"})]
+    cands = ["dense", "xla", "pairs"]
+    # LM=4: the pairs kernel refuses the shape and lands in the table as
+    # an error row
     s, table = autotune.autotune_solver(a, x, b, precision="c",
-                                        candidates=cands, nrep=4, echo=0)
+                                        candidates=cands, nrep=4, echo=0,
+                                        interpret=True)
     timed = [r for r in table if "ms_per_multiply" in r]
     assert timed, table
+    assert any(r["engine"] == "pairs" and "error" in r for r in table)
     # winner == fastest timed row
     best_row = min(timed, key=lambda r: r["ms_per_multiply"])
     assert s.engine == best_row["engine"]
@@ -68,35 +71,10 @@ def test_autotune_cache_key_differs_by_pattern(rng, tune_cache):
     a2, x2, b2 = make_random_problem(rng, mb=12, lm=4, ln=4, ncols=2,
                                      x_fill=0.7, dtype=np.complex64,
                                      seed_shift=5)
-    cands = [("xla", {})]
+    cands = ["xla"]
     autotune.autotune_solver(a, x, b, precision="c", candidates=cands,
                              nrep=2)
     autotune.autotune_solver(a2, x2, b2, precision="c", candidates=cands,
                              nrep=2)
     cache = json.loads(tune_cache.read_text())
     assert len(cache) == 2
-
-
-def test_autotune_local_search(rng, monkeypatch):
-    """The coordinate-descent stage must run within its budget, record
-    search rows, and never return a slower configuration than the
-    candidate-race winner."""
-    import numpy as np
-
-    from tfqmrgpu_tpu.autotune import autotune_solver
-
-    from conftest import make_random_problem
-
-    a, x, b = make_random_problem(rng, mb=10, lm=4, ln=4, ncols=2,
-                                  x_fill=1.0, dtype=np.complex64)
-    monkeypatch.setenv("TFQ_AUTOTUNE_SEARCH", "3")
-    s, table = autotune_solver(a, x, b, precision="c", nrep=2,
-                               use_cache=False,
-                               candidates=[("pairs", {})])
-    search_rows = [r for r in table if r.get("search")]
-    assert len(search_rows) <= 3
-    ok_rows = [r for r in table if "ms_per_multiply" in r
-               and np.isfinite(r["ms_per_multiply"])]
-    winner = min(ok_rows, key=lambda r: r["ms_per_multiply"])
-    assert s is not None and winner["ms_per_multiply"] <= \
-        min(r["ms_per_multiply"] for r in ok_rows)

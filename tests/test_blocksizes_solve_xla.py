@@ -1,0 +1,13 @@
+"""Solve parity of the 'xla' engine at every block size the reference
+compiles (allowed_block_sizes.h:4-18), in both precisions, against a dense
+NumPy solve."""
+
+import pytest
+
+from blocksize_cases import SIZES, solve_parity
+
+
+@pytest.mark.parametrize("prec", ["c", "z"])
+@pytest.mark.parametrize("lm,ln", SIZES)
+def test_solve_parity_xla(rng, lm, ln, prec):
+    solve_parity(rng, lm, ln, prec, "xla")

@@ -54,7 +54,7 @@ def test_multihost_parity_vs_single_process(tmp_path):
 
     from tfqmrgpu_tpu.plan import create_plan
     from tfqmrgpu_tpu.parallel import make_mesh
-    from tfqmrgpu_tpu.parallel.sharded_pairs import ShardedPairsSolver
+    from tfqmrgpu_tpu.parallel import ShardedBlockListSolver
 
     rng = np.random.default_rng(123)
     lm = ln = 4
@@ -62,7 +62,7 @@ def test_multihost_parity_vs_single_process(tmp_path):
                                   x_fill=1.0, dtype=np.complex64)
     plan = create_plan(a, x, b)
     plan.lm, plan.ln = lm, ln
-    sp = ShardedPairsSolver(plan, make_mesh(8, 1), interpret=True)
+    sp = ShardedBlockListSolver(plan, make_mesh(8, 1))
     xref, info = sp.solve(a.data.real.astype(np.float32),
                           a.data.imag.astype(np.float32),
                           b.data.real.astype(np.float32),

@@ -1,5 +1,5 @@
-"""Panel-engine tests: the dense and pallas (interpret-mode) engines must
-reproduce the block-list engine's solutions and statistics."""
+"""Panel-engine tests: the dense engine must reproduce the block-list
+engine's solutions and statistics."""
 
 import numpy as np
 import pytest
@@ -43,10 +43,9 @@ def test_densify_a_matches_dense_assembly(rng):
     np.testing.assert_allclose(dr + 1j * di, want)
 
 
-@pytest.mark.parametrize("engine", ["dense", "pallas"])
-def test_panel_engines_match_block_engine(rng, engine):
+@pytest.mark.parametrize("engine,prec", [("dense", "z"), ("dense", "c")])
+def test_panel_engines_match_block_engine(rng, engine, prec):
     lm, ln = 4, 8
-    prec = "c" if engine == "pallas" else "z"
     dtype = np.complex64 if prec == "c" else np.complex128
     tol = 1e-5 if prec == "c" else 1e-9
     a, x, b = make_random_problem(rng, mb=16, lm=lm, ln=ln, ncols=4,
@@ -96,53 +95,10 @@ def test_auto_engine_picks_dense_for_small(rng):
     assert s.engine == "dense"
 
 
-def test_pallas_requires_c_precision(rng):
+def test_removed_engines_raise(rng):
+    """The row-tile 'pallas' engine is gone; asking for it (or any unknown
+    engine) raises instead of falling back."""
     a, x, b = make_random_problem(rng, mb=8, lm=4, ln=4, ncols=2, x_fill=1.0)
-    with pytest.raises(tq.TfqmrgpuError):
-        tq.Solver(a, x, b, precision="z", engine="pallas")
-
-
-def test_row_tile_packing(rng):
-    from tfqmrgpu_tpu.ops.pallas_spmm import build_a_panels, pack_row_tiles
-
-    lm = 4
-    a, x, b = make_random_problem(rng, mb=13, lm=lm, ln=4, ncols=2,
-                                  x_fill=1.0)
-    plan = create_plan(a, x, b)
-    pack = pack_row_tiles(plan.rowptr_a, plan.colind_a, plan.nrows, lm,
-                          r_tile=4)
-    panels = build_a_panels(pack, a.data.real.copy())
-    # reassemble the dense matrix from the panels and compare
-    want = dense_from_bsr(a, lm, lm).real
-    got = np.zeros_like(want)
-    for t in range(pack.ntiles):
-        r0 = t * pack.r_tile * lm
-        r1 = min(r0 + pack.r_tile * lm, want.shape[0])
-        for k in range(pack.ku):
-            c0 = pack.xcols[t, k] * lm
-            blkcol = panels[t, : r1 - r0, k * lm:(k + 1) * lm]
-            got[r0:r1, c0:c0 + lm] += blkcol
-    # padded xcols slots repeat column 0 with zero data -> += is safe
-    np.testing.assert_allclose(got, want)
-
-
-def test_pallas_engine_bf16x6_matches_highest(rng, monkeypatch):
-    """Row-tile kernel's bf16x6 mode (3-way in-kernel splits of BOTH
-    operands, 6 cross products in 3 lane-packed dots): exact-f32 quality
-    -- the solve must converge like 'highest', not the bf16x4 floor."""
-    lm, ln = 16, 16
-    a, x, b = make_random_problem(rng, mb=8, lm=lm, ln=ln, ncols=2,
-                                  x_fill=1.0, dtype=np.complex64)
-    tol = 1e-6
-    monkeypatch.setenv("TFQ_PALLAS_MM_PREC", "highest")
-    x1, i1 = tq.solve(a, x, b, precision="c", engine="pallas",
-                      tolerance=tol, max_iterations=400)
-    monkeypatch.setenv("TFQ_PALLAS_MM_PREC", "bf16x6")
-    x2, i2 = tq.solve(a, x, b, precision="c", engine="pallas",
-                      tolerance=tol, max_iterations=400)
-    assert i2.return_status == int(Status.SUCCESS)
-    assert abs(i1.iterations_needed - i2.iterations_needed) <= 2
-    ad = dense_from_bsr(a, lm, lm)
-    xd = dense_from_bsr(x2, lm, ln)
-    bd = dense_from_bsr(b, lm, ln)
-    assert np.max(np.abs(ad @ xd - bd)) / np.max(np.abs(bd)) < 50 * tol
+    for engine in ("pallas", "rowtile"):
+        with pytest.raises(tq.TfqmrgpuError):
+            tq.Solver(a, x, b, precision="c", engine=engine)

@@ -7,7 +7,7 @@ import pytest
 
 from tfqmrgpu_tpu.bsr import Bsr
 from tfqmrgpu_tpu.errors import Status, TfqmrgpuError
-from tfqmrgpu_tpu.plan import create_plan, ell_pack
+from tfqmrgpu_tpu.plan import create_plan
 
 from conftest import make_random_problem
 
@@ -125,17 +125,6 @@ def test_empty_column_filtering():
     assert plan.ncols == 2
     np.testing.assert_array_equal(plan.colindx, [0, 1, 0, 1])
     np.testing.assert_array_equal(plan.original_colind_x, [0, 5])
-
-
-def test_ell_pack(rng):
-    a, x, b = make_random_problem(rng, mb=12, ncols=3)
-    plan = create_plan(a, x, b)
-    ia, ix, counts = ell_pack(plan)
-    assert ia.shape == ix.shape == (plan.nnzb_x, int(counts.max()))
-    for i in range(plan.nnzb_x):
-        lo, hi = plan.starts[i], plan.starts[i + 1]
-        np.testing.assert_array_equal(ia[i, : hi - lo], plan.pairs[lo:hi, 0])
-        np.testing.assert_array_equal(ix[i, : hi - lo], plan.pairs[lo:hi, 1])
 
 
 def test_reference_plan_file_counts():

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from tfqmrgpu_tpu.ops import pallas_spmm as rt
+from tfqmrgpu_tpu.io import planfile as rt
 
 
 def _banded_pairs(mb=24, ncols=3, deg=3):

@@ -84,68 +84,3 @@ def test_refinement_loop_respects_global_budget():
         stall_seed=1e-4)
     assert not res["converged"]
     assert res["total_iters"] >= 12   # then the budget check breaks the loop
-
-
-def test_plan_time_model_r_tile_consistent():
-    """Regression: the time model must count the r_tile factor in the A
-    stream and MXU terms and must NOT divide the grid-step count by r_tile
-    a second time (ntiles already counts r_tile-row tiles).  Packing the
-    same pair list at r_tile=2 halves ntiles but keeps the total A volume
-    ~constant, so the modeled time may not collapse."""
-    from tfqmrgpu_tpu.ops import pairpanel as pp
-
-    rng = np.random.default_rng(1)
-    mb, ncols, lm, ln = 24, 4, 8, 8
-    # banded A over a dense (row, col) X grid
-    rows, cols = [0], []
-    for i in range(mb):
-        cs = sorted({(i + s) % mb for s in (-1, 0, 1, 2)})
-        cols.extend(cs)
-        rows.append(len(cols))
-    xid = np.arange(mb * ncols).reshape(mb, ncols)
-    pa, px, py = [], [], []
-    for r in range(mb):
-        for ia in range(rows[r], rows[r + 1]):
-            k = cols[ia]
-            for c in range(ncols):
-                pa.append(ia)
-                px.append(xid[k, c])
-                py.append(xid[r, c])
-    pa, px, py = map(np.asarray, (pa, px, py))
-    nnzb = mb * ncols
-
-    p1 = pp.pack_pair_plan(pa, px, py, nnzb, nnzb, lm, ln, r_tile=1)
-    p2 = pp.pack_pair_plan(pa, px, py, nnzb, nnzb, lm, ln, r_tile=2)
-    assert p2.ntiles <= -(-p1.ntiles // 2) + 1
-    e1, _ = pp.plan_time_model(p1, "highest")
-    e2, _ = pp.plan_time_model(p2, "highest")
-    # same work modulo union padding: the r_tile=2 estimate must not be
-    # spuriously cheap (the old model under-counted it up to 2x)
-    assert e2 >= 0.8 * e1
-
-
-def test_sharded_pairs_pack_honors_layout_vetoes(rng, monkeypatch):
-    """The sharded pairs pack races resident and stride window layouts
-    (r3); the pack-level knobs must still pin the legacy O == S layout
-    when asked (TFQ_PAIRS_RESIDENT=0 vetoes resident candidates,
-    TFQ_PAIRS_MAX_STRIDE=1 the stride factors)."""
-    from conftest import make_random_problem
-    from tfqmrgpu_tpu import create_plan
-    from tfqmrgpu_tpu.parallel import make_mesh
-    from tfqmrgpu_tpu.parallel.sharded_pairs import ShardedPairsSolver
-
-    lm = ln = 4
-    a, x, b = make_random_problem(rng, mb=12, lm=lm, ln=ln, ncols=3,
-                                  x_fill=1.0, dtype=np.complex64)
-    plan = create_plan(a, x, b)
-    plan.lm, plan.ln = lm, ln
-    monkeypatch.setenv("TFQ_PAIRS_RESIDENT", "0")
-    monkeypatch.setenv("TFQ_PAIRS_MAX_STRIDE", "1")
-    sp = ShardedPairsSolver(plan, make_mesh(2, 1), interpret=True)
-    assert not sp.pp_plan.resident
-    assert sp.pp_plan.o_blocks == sp.pp_plan.s_window
-    # and with the vetoes lifted, a resident pack is admissible again
-    monkeypatch.setenv("TFQ_PAIRS_RESIDENT", "1")
-    monkeypatch.delenv("TFQ_PAIRS_MAX_STRIDE")
-    sp2 = ShardedPairsSolver(plan, make_mesh(2, 1), interpret=True)
-    assert sp2.pp_plan.resident

@@ -14,7 +14,7 @@ pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs 4 simulated devices")
 
 
-@pytest.mark.parametrize("engine", ["rowtile", "pairs"])
+@pytest.mark.parametrize("engine", ["panel", "blocklist"])
 def test_sharded_mixed_reaches_f64_residuals(rng, engine):
     """precision 'm' must push the relative residual far below the f32
     floor (~1e-5) that plain 'c' stalls at."""
@@ -49,10 +49,10 @@ def test_sharded_mixed_beats_plain_c(rng):
                                         .astype(np.complex128)), lm, ln)
         return np.linalg.norm(ad @ xd - bd) / np.linalg.norm(bd)
 
-    xc, _ = solve_sharded(a, x, b, n_devices=4, engine="rowtile",
+    xc, _ = solve_sharded(a, x, b, n_devices=4, engine="panel",
                           precision="c", tolerance=1e-12,
                           max_iterations=400)
-    xm, im = solve_sharded(a, x, b, n_devices=4, engine="rowtile",
+    xm, im = solve_sharded(a, x, b, n_devices=4, engine="panel",
                            precision="m", tolerance=1e-10,
                            max_iterations=800)
     assert rel_of(xm) < 1e-3 * max(rel_of(xc), 1e-30) or rel_of(xm) < 1e-10

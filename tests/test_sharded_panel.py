@@ -49,3 +49,21 @@ def test_sharded_panel_uneven_padding(rng):
 
 def test_sharded_panel_z(rng):
     _run(rng, 2, 1, prec="z")
+
+
+def test_solve_sharded_one_call(rng):
+    """The high-level mesh convenience picks an engine and solves."""
+    from tfqmrgpu_tpu.parallel import solve_sharded
+
+    lm = ln = 8
+    a, x, b = make_random_problem(rng, mb=8, lm=lm, ln=ln, ncols=2,
+                                  x_fill=1.0, dtype=np.complex64)
+    got, info = solve_sharded(a, x, b, n_devices=4, tolerance=1e-4,
+                              max_iterations=300)
+    # a small operator: the dense-panel engine, on all four devices
+    assert info["return_status"] == 0 and info["engine"] == "panel"
+    assert info["shard_devices"] == [0, 1, 2, 3]
+    ad = dense_from_bsr(a, lm, lm)
+    xd = dense_from_bsr(x.with_data(got), lm, ln)
+    bd = dense_from_bsr(b, lm, ln)
+    assert np.max(np.abs(ad @ xd - bd)) / np.max(np.abs(bd)) < 5e-3

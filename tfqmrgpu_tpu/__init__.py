@@ -1,14 +1,14 @@
-"""tfqmrgpu_tpu: a TPU-native block-sparse transpose-free QMR (tfQMR) framework.
+"""tfqmrgpu_tpu: a JAX block-sparse transpose-free QMR (tfQMR) framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-real-space/tfQMRgpu CUDA library (reference: /root/reference): solves
-``A @ X == B`` for block-sparse complex operators in BSR format, vectorized
-over many right-hand sides, on TPU hardware -- single chip or sharded over a
-device mesh.
+real-space/tfQMRgpu CUDA library: solves ``A @ X == B`` for block-sparse
+complex operators in BSR format, vectorized over many right-hand sides, on
+an NVIDIA GPU -- one card or sharded over a device mesh.
 
-Layer map (TPU-native equivalents of the reference's five layers):
+Layer map (equivalents of the reference's five layers):
 
-* ``ops/``      -- device kernels: block-SpMM (XLA + Pallas), fused per-column
+* ``ops/``      -- device kernels: block-SpMM (XLA + a Pallas/Triton
+                   pair-walk kernel), fused per-column
                    linalg (axpy/xpay/dotp/nrm2), tfQMR decision math.
 * ``core.py``   -- the platform-independent tfQMR solver as a
                    ``jax.lax.while_loop`` (reference: tfqmrgpu_core.hxx).
@@ -39,7 +39,7 @@ __version__ = "0.1.0"
 
 ALLOWED_BLOCK_SIZES = (
     # (LM, LN) pairs supported by the reference library
-    # (reference: tfQMRgpu/include/allowed_block_sizes.h:4-18).  The TPU
+    # (reference: tfQMRgpu/include/allowed_block_sizes.h:4-18).  This
     # framework traces block shapes at jit time, so ANY (LM, LN) with
     # LN >= LM works; this tuple is kept for introspection parity.
     (4, 4), (4, 5), (4, 8), (4, 32),
@@ -57,7 +57,7 @@ def allowed_block_sizes():
 
 def block_size_missing(ldA: int, ldB: int) -> int:
     """Returns 0 if the (ldA, ldB) block-size pair is in the reference's
-    compiled list (tfqmrgpu.cu:93-106).  The TPU framework itself accepts any
+    compiled list (tfqmrgpu.cu:93-106).  This framework itself accepts any
     LN >= LM >= 1."""
     return 0 if (ldA, ldB) in ALLOWED_BLOCK_SIZES else int(Status.BLOCKSIZE_MISSING)
 

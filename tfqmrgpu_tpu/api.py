@@ -9,14 +9,14 @@ workflow (tfqmrgpu.cu:700-791):
     -> destroy*
 
 This module reproduces that workflow one-to-one so a user (or a foreign-
-language binding -- see ``native/``) can drive the TPU solver with the same
+language binding -- see ``native/``) can drive the JAX solver with the same
 call sequence.  Handles and plans are small integer ids into module-level
 registries; every function RETURNS a packed ``tfqmrgpuStatus_t`` (0 success,
 reference encoding: code + 1000*line + 10^7*char, tfqmrgpu.h:179-181) instead
 of raising, and writes results through returned values (Python) that the C
 bridge copies into out-pointers.
 
-TPU-specific semantics (documented departures):
+Semantics that differ from the reference (documented departures):
   * ``setStream``/``getStream`` store the value for parity; XLA owns streams.
   * ``bufferSize`` returns the analytic device-memory estimate
     (Plan.memory_requirement_bytes); XLA allocates for real, so
@@ -24,7 +24,7 @@ TPU-specific semantics (documented departures):
     and ``setBuffer`` performs the state setup the reference does there
     (shadow-vector generation, index-table upload).
   * precision 'm' (mixed) runs the REAL mixed pipeline: complex64
-    iterations on the MXU + f64-residual iterative refinement
+    iterations + f64-residual iterative refinement
     (solver.refine_mixed), with a complex128 re-solve fallback -- the mode
     the reference declares but disables (tfqmrgpu.cu:42).
 """
@@ -115,7 +115,7 @@ def destroy_handle(handle: int) -> int:
 
 
 def set_stream(handle: int, stream: int) -> int:
-    """Stored for parity; on TPU XLA owns the execution stream."""
+    """Stored for parity; XLA owns the execution stream."""
     h = _HANDLES.get(int(handle))
     if h is None:
         return encode_status(Status.POINTER_INVALID)
@@ -161,7 +161,7 @@ def bsrsv_allowed_block_sizes(array_length: int = 1 << 30) -> tuple[int, int, li
 
 def bsrsv_block_size_missing(ld_a: int, ld_b: int) -> int:
     """tfqmrgpu_bsrsv_blockSizeMissing: 0 if (ldA, ldB) is in the reference's
-    compiled list.  The TPU framework traces block shapes, so any
+    compiled list.  This framework traces block shapes, so any
     LN >= LM >= 1 actually solves; this mirrors the introspection only."""
     from . import block_size_missing
 
@@ -229,7 +229,7 @@ def bsrsv_buffer_size(
         return encode_status(Status.PRECISION_MISSMATCH, 0, precision)
     lm, ln = int(block_dim), int(rhs_block_dim)
     if int(ld_a) != lm or int(ld_b) != ln:
-        # the TPU framework stores blocks unpadded; ld must equal the dim
+        # blocks are stored unpadded; ld must equal the dim
         return encode_status(Status.UNDOCUMENTED_ERROR, 1)
     if ln < lm or lm < 1:
         return encode_status(Status.BLOCKSIZE_MISSING, 0)
@@ -366,8 +366,8 @@ def bsrsv_solve(handle: int, plan: int, threshold: float = 1e-6,
 def _solve_mixed_plan(ps: _PlanState, threshold: float,
                       max_iterations: int) -> int:
     """The real mixed-precision path through the plan API: iterate in 'c'
-    (fast MXU), then reach f64 residuals by iterative refinement (one
-    emulated-f64 SpMM per round + f32 correction solves,
+    then reach f64 residuals by iterative refinement (one f64 SpMM per
+    round + f32 correction solves,
     solver.refine_mixed), with a complex128 re-solve fallback if
     refinement stalls.  Implements the mode the reference declares but
     disables (tfqmrgpu.cu:42)."""
@@ -512,7 +512,7 @@ def bsrsv_m(mb, ld_a, ld_b, rowptr_a, colind_a, amat, trans_a,
             rowptr_b, colind_b, bmat, trans_b,
             max_iterations=999, threshold=1e-9, index_offset=0, echo=0):
     """Mixed-precision one-call solve on double (RIRIRIRI) arrays:
-    complex64 iterations on the MXU fast path + complex128 refinement.
+    complex64 iterations + complex128 refinement.
     The mode the reference declares but never enabled (tfqmrgpu.cu:42)."""
     return _bsrsv_onecall("m", mb, ld_a, ld_b,
                           rowptr_a, colind_a, amat, trans_a,

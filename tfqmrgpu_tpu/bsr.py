@@ -1,7 +1,7 @@
 """Host-side BSR (Block-compressed Sparse Row) containers.
 
 Reference semantics: bsr.hxx:10-24 and the BSR traversal contract documented
-in tfqmrgpu.h:119-133.  Block data is stored TPU-first as *split* real and
+in tfqmrgpu.h:119-133.  Block data is stored on device as *split* real and
 imaginary planes of shape ``[nnzb, slow, fast]`` (the analogue of the
 reference's native RRRRIIII device layout, tfqmrgpu.h:184) rather than the
 interleaved RIRIRIRI host layout; converters for interop live in

@@ -9,7 +9,7 @@ iteration (tau-based upper bound, tfqmrgpu_core.hxx:235-253) and probes the
 true residual ``|A@v1 - B|`` only when the bound crosses an adaptive target
 (tfqmrgpu_core.hxx:263-304).
 
-Key TPU-first departures from the reference:
+Key departures from the reference:
 
 * the reference synchronizes device->host EVERY iteration to take the
   convergence decision on the CPU (tfqmrgpu_core.hxx:235-236); here the whole
@@ -146,9 +146,8 @@ def tfqmr_loop(
         var=jnp.zeros((ncols, ln), dtype=f64),
         status=jnp.zeros((ncols, ln), dtype=jnp.int32),
         target_bound2=tol2 * 100.0 * 100.0,   # init test_factor=100 (:130)
-        # the reference inits to DBL_MAX/8; that overflows the f32 exponent
-        # range of TPU-emulated f64, so use a large-but-representable value
-        residual2=jnp.asarray(1e30, f64),
+        # the reference inits to DBL_MAX/8
+        residual2=jnp.asarray(decisions.initial_residual2(), f64),
         stop_code=jnp.int32(0),
         iters_needed=maxit,
         n_probes=jnp.int32(0),
@@ -197,10 +196,9 @@ def tfqmr_loop(
             y = prim.multiply(v1)                          # v9 := A @ v1
             y = prim.add_rhs(y, v2, -1.0)                  # v9 -= B
             res2 = prim.nrm2(y) * inv_bn2
-            # underflow guard: 1.4e-76 in the reference, but that flushes to
-            # zero in TPU-emulated f64 -- use the backend-aware epsilon
+            # underflow guard (1.4e-76 in the reference)
             max_res2 = jnp.maximum(prim.allmax(jnp.max(res2)),
-                                   decisions.breakdown_eps())
+                                   decisions.residual_floor())
             # isDone evaluated with the status BEFORE the res2<=0 update,
             # matching the reference's loop (tfqmrgpu_core.hxx:276-286)
             is_done = prim.alland(jnp.all((res2 <= tol2) | (status != 0)))
@@ -294,12 +292,9 @@ def solve_core(
 
 
 @partial(jax.jit,
-         static_argnames=("mb", "lm", "ncc", "ln", "rhs_trivial", "engine"))
+         static_argnames=("mb", "lm", "ncc", "ln", "rhs_trivial"))
 def solve_core_panel(
-    a_re, a_im,          # dense [NR, NR] planes ('dense' engine) or
-                         # BSR stream arrays ('pallas' engine, see pallas_spmm)
-    a_colind,            # int32[nnzbA] (pallas engine; dummy for dense)
-    a_rowptr,            # int32[mb+1]  (pallas engine; dummy for dense)
+    a_re, a_im,          # dense [NR, NR] planes of A
     b_panel: Pair,       # [NR, ncc, LN]
     v3_panel: Pair,      # [NR, ncc, LN] float32 shadow vector (masked)
     mask4,               # [mb, 1, ncc, 1] in data dtype
@@ -315,25 +310,15 @@ def solve_core_panel(
     ncc: int,
     ln: int,
     rhs_trivial: bool = False,
-    engine: str = "dense",
 ) -> SolveResult:
-    """Panel-engine entry: vectors live as dense [NR, ncc, LN] panels
-    (see ops/panel.py for why this is the TPU-native layout)."""
+    """Dense-engine entry: vectors live as dense [NR, ncc, LN] panels
+    (see ops/panel.py)."""
     from .ops import panel as panel_ops
     from .ops.blocksparse import MATMUL_PRECISION
 
     dt = b_panel[0].dtype
-    if engine == "dense":
-        multiply = panel_ops.dense_multiply(
-            a_re, a_im, mask4, mb, lm, ncc, ln, MATMUL_PRECISION)
-    elif engine == "pallas":
-        from .ops.pallas_spmm import bsr_panel_multiply
-
-        multiply = bsr_panel_multiply(
-            a_re, a_im, a_colind, mask4, mb, lm, ncc, ln,
-            interpret=jax.default_backend() != "tpu")
-    else:
-        raise ValueError(f"unknown panel engine {engine!r}")
+    multiply = panel_ops.dense_multiply(
+        a_re, a_im, mask4, mb, lm, ncc, ln, MATMUL_PRECISION)
 
     prim = panel_ops.make_panel_primitives(multiply, b_panel)
 

@@ -1,4 +1,4 @@
-"""Device-side operator library (the TPU analogue of the reference's L0/L1).
+"""Device-side operator library (the analogue of the reference's L0/L1).
 
 * ``layout``      -- host/device data-layout conversion (RIRIRIRI interleave,
                      split re/im planes, block transpose/conjugation).
@@ -6,11 +6,8 @@
                      dotp/nrm2 reductions, RHS scatter-add.
 * ``decisions``   -- the three tfQMR scalar decision updates (dec35/dec34/decT).
 * ``blocksparse`` -- block-sparse Y = A @ X over a multiplication pair list
-                     (pure-XLA gather/batched-matmul path).
-* ``pallas_spmm`` -- Pallas row-tile union kernel for BSR A against dense
-                     X panels (panel engines' perf path).
-* ``pairpanel``   -- Pallas pair-plan engine: geometry recovery, RCM
-                     relabeling, union-ELL panels, VMEM sliding windows.
+                     (plain-XLA gather/batched-matmul path).
+* ``pairwalk``    -- the pair-walk SpMM kernel (Pallas through Triton).
 * ``panel``       -- the dense row-panel vector layout and primitives.
 """
 
@@ -20,13 +17,13 @@ from . import decisions
 from . import blocksparse
 
 __all__ = ["layout", "linalg", "decisions", "blocksparse", "panel",
-           "pallas_spmm", "pairpanel"]
+           "pairwalk"]
 
 
 def __getattr__(name):
-    # lazy submodule access (panel/pallas_spmm/pairpanel import jax.pallas
-    # machinery; keep base import light)
-    if name in ("panel", "pallas_spmm", "pairpanel"):
+    # lazy submodule access (pairwalk imports the Pallas machinery; keep
+    # the base import light)
+    if name in ("panel", "pairwalk"):
         import importlib
 
         return importlib.import_module(f".{name}", __name__)

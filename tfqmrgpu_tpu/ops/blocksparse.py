@@ -9,14 +9,15 @@ with complex LM x LM blocks of A and LM x LN blocks of X/Y
 (reference: gemmNxNf, tfqmrgpu_blockmult.hxx:10-93, and the CPU oracle in
 tfqmrgpu_blocksparse.hxx:142-196).
 
-Two TPU implementations:
+Two implementations:
 
-* ``spmm_pairs`` (this module): pure XLA -- gather both operand blocks per
-  pair, one batched complex matmul over all pairs (4 real MXU matmuls), then
-  a sorted segment-sum into Y blocks.  Simple, differentiable, works on any
-  backend; the gather and segment-sum cost HBM bandwidth.
-* ``pallas_spmm.spmm_ell``: hand-written Pallas kernel over an ELL-packed
-  pair table that keeps the accumulator in VMEM (perf path).
+* ``spmm_pairs`` (this module): plain XLA -- gather both operand blocks per
+  pair, one batched complex matmul over all pairs (4 real batched matmuls,
+  float64 ones go to cuBLAS as they are), then a sorted segment-sum into Y
+  blocks.  Simple, differentiable, works on any backend; every per-pair
+  product is written to device memory and read back by the segment sum.
+* ``pairwalk.spmm_pairwalk``: the hand-written pair-walk kernel (Pallas
+  through Triton) that keeps each Y block's accumulator in registers.
 
 The ``BlockSparseAction`` class mirrors the reference's operator-abstraction
 contract (blocksparse_action_t, tfqmrgpu_blocksparse.hxx:14-203): any object
@@ -37,9 +38,9 @@ import numpy as np
 Pair = tuple[jax.Array, jax.Array]
 
 # Matmul precision for the solver data path.  JAX's DEFAULT dot precision
-# truncates f32 operands to bf16 on the MXU (~3 decimal digits), which
-# violates the reference's correctness gates (maxdev <= 1e-4 for float,
-# bench_tfqmrgpu.cu:414); HIGHEST keeps true f32 (bf16x6 passes on TPU).
+# may run float32 products in TF32 (~3 decimal digits), which risks the
+# reference's correctness gate (maxdev <= 1e-4 for float,
+# bench_tfqmrgpu.cu:414); HIGHEST keeps true f32.
 MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -78,84 +79,15 @@ def flops_spmm(n_pairs: int, lm: int, ln: int) -> float:
     return n_pairs * 8.0 * lm * lm * ln
 
 
-@partial(jax.jit, static_argnames=("nnzb_y", "p", "q"))
-def spmm_pairs_oz(a_sl, a_scale, x, pair_a, pair_x, pair_y, nnzb_y,
-                  p: int, q: int) -> Pair:
-    """f64-quality pair-list SpMM via Ozaki bf16 slice products.
-
-    TPU f64 matmuls are software-emulated at a fraction of the f32 rate;
-    this path reaches f64 *quality* (per-block error ~LM * 2^-pq relative
-    to the block row/column scales, ~1e-16 at the default p*q >= 53) with
-    only bf16 MXU products -- see ops/ozaki.py.  It has NO Pallas tiling
-    constraints, so it serves the block sizes the pair-panel 'oz' kernel
-    rejects (LM < 16) and any backend.  This is the TPU-native analogue of
-    the reference's native-double gemmNxNf instantiation
-    (tfqmrgpu.cu:40-45) for the block-list engine.
-
-    a_sl:    (re, im) bf16 [p, nnzbA, LM, LM] A slices (precomputed once
-             per set_matrix -- A is constant across iterations).
-    a_scale: (re, im) f64 [nnzbA, LM, 1] per-block-row power-of-two scales.
-    x:       (re, im) f64 [nnzbX, LM, LN]; sliced here, per call.
-    """
-    from . import ozaki
-
-    xr_sl, taur = ozaki.slice_operand(x[0], axis=1, p=p, q=q)
-    xi_sl, taui = ozaki.slice_operand(x[1], axis=1, p=p, q=q)
-    # gather ONCE per multiply (each slice level reused across the s+t<p
-    # cross products below)
-    ar = a_sl[0][:, pair_a]          # [p, nPairs, LM, LM] bf16
-    ai = a_sl[1][:, pair_a]
-    xr = xr_sl[:, pair_x]            # [p, nPairs, LM, LN] bf16
-    xi = xi_sl[:, pair_x]
-    s_np, t_np = ozaki.slice_pairs(p)
-    st = jnp.stack([jnp.asarray(s_np), jnp.asarray(t_np)], axis=1)
-
-    def dot(u, v):
-        # integer-valued bf16 slices: the f32 MXU accumulation is EXACT
-        # (slice_params caps q so LM * 2^2q <= 2^24)
-        return jax.lax.dot_general(
-            u, v, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32)
-
-    def body(acc, st_i):
-        a_r = jax.lax.dynamic_index_in_dim(ar, st_i[0], 0, keepdims=False)
-        a_i = jax.lax.dynamic_index_in_dim(ai, st_i[0], 0, keepdims=False)
-        x_r = jax.lax.dynamic_index_in_dim(xr, st_i[1], 0, keepdims=False)
-        x_i = jax.lax.dynamic_index_in_dim(xi, st_i[1], 0, keepdims=False)
-        rr, ii, ri, ir = acc
-        return (rr + dot(a_r, x_r).astype(jnp.float64),
-                ii + dot(a_i, x_i).astype(jnp.float64),
-                ri + dot(a_r, x_i).astype(jnp.float64),
-                ir + dot(a_i, x_r).astype(jnp.float64)), None
-
-    npairs = pair_a.shape[0]
-    zero = jnp.zeros((npairs, a_sl[0].shape[2], x[0].shape[2]),
-                     jnp.float64)
-    (rr, ii, ri, ir), _ = jax.lax.scan(body, (zero, zero, zero, zero), st)
-    sr = a_scale[0][pair_a]          # [nPairs, LM, 1]
-    si = a_scale[1][pair_a]
-    tr = taur[pair_x]                # [nPairs, 1, LN]
-    ti = taui[pair_x]
-    # descale (power-of-two scales: exact) + complex assembly in f64
-    pr = rr * (sr * tr) - ii * (si * ti)
-    pi = ri * (sr * ti) + ir * (si * tr)
-    yr = jax.ops.segment_sum(pr, pair_y, num_segments=nnzb_y,
-                             indices_are_sorted=True)
-    yi = jax.ops.segment_sum(pi, pair_y, num_segments=nnzb_y,
-                             indices_are_sorted=True)
-    return yr, yi
-
-
 @dataclasses.dataclass
 class BlockSparseAction:
     """Default operator action: explicit block-sparse A (L1 of the layer map).
 
     Holds the device-resident A blocks and the plan's index tables; callable
     as ``action(x) -> y``.  ``engine`` selects the SpMM implementation:
-    'xla' (gather + batched matmul) or 'pallas' (ELL MXU kernel).  f64
-    operands on the 'xla' engine route through ``spmm_pairs_oz`` (Ozaki
-    bf16 slice products, f64 quality without f64 hardware) unless
-    TFQ_XLA_OZ=0.
+    'xla' (gather + batched matmul + segment sum) or 'pairs' (the pair-walk
+    kernel, ``ops/pairwalk.py``; ``interpret`` runs it in the Pallas
+    interpreter).
     """
 
     a_re: jax.Array             # [nnzbA, LM, LM]
@@ -167,26 +99,23 @@ class BlockSparseAction:
     lm: int
     ln: int
     engine: str = "xla"
-    # ELL tables (populated when engine == 'pallas')
-    ell_ia: Optional[jax.Array] = None   # int32[nnzbY, kmax]
-    ell_ix: Optional[jax.Array] = None
-    ell_counts: Optional[jax.Array] = None
-    # Ozaki A slices (populated for f64 operands on the 'xla' engine)
-    oz_a_sl: Optional[tuple] = None      # (re, im) bf16 [p, nnzbA, LM, LM]
-    oz_a_scale: Optional[tuple] = None   # (re, im) f64 [nnzbA, LM, 1]
-    oz_pq: Optional[tuple] = None        # (p, q) static slice geometry
+    interpret: bool = False
+    # pair-walk kernel operands (engine == 'pairs')
+    starts: Optional[jax.Array] = None   # int32[nnzbY + 1]
+    ka: Optional[tuple] = None           # A planes in the kernel's layout
 
     @classmethod
     def from_plan(cls, plan, a_re, a_im, engine: str = "xla",
-                  ln: Optional[int] = None) -> "BlockSparseAction":
-        import os
-
+                  ln: Optional[int] = None,
+                  interpret: bool = False) -> "BlockSparseAction":
         lm = int(np.asarray(a_re).shape[1])
         ln_ = int(ln if ln is not None else lm)
         if ln_ < lm:
             raise ValueError(
                 f"LN={ln_} < LM={lm}: the rectangular feature only supports "
                 "more columns than rows (reference: tfqmrgpu_core.hxx:34)")
+        if engine not in ("xla", "pairs"):
+            raise ValueError(f"unknown block-list engine {engine!r}")
         counts = np.diff(plan.starts)
         pair_y = np.repeat(np.arange(plan.nnzb_x, dtype=np.int32), counts)
         kw = dict(
@@ -195,37 +124,21 @@ class BlockSparseAction:
             pair_x=jnp.asarray(plan.pairs[:, 1].astype(np.int32)),
             pair_y=jnp.asarray(pair_y),
             nnzb_y=plan.nnzb_x, lm=lm, ln=ln_, engine=engine,
+            interpret=bool(interpret),
         )
-        if engine == "pallas":
-            from ..plan import ell_pack
-            ell_ia, ell_ix, cnt = ell_pack(plan)
-            kw.update(ell_ia=jnp.asarray(ell_ia), ell_ix=jnp.asarray(ell_ix),
-                      ell_counts=jnp.asarray(cnt))
-        elif (engine == "xla"
-              and np.dtype(np.asarray(a_re).dtype) == np.float64
-              and jax.config.read("jax_enable_x64")
-              and os.environ.get("TFQ_XLA_OZ", "1") != "0"):
-            # f64 operands: pre-slice A once (constant across iterations)
-            from . import ozaki
+        if engine == "pairs":
+            from .pairwalk import kernel_a
 
-            p, q = ozaki.slice_params(lm)
-            slc = jax.jit(ozaki.slice_operand,
-                          static_argnames=("axis", "p", "q"))
-            ar_sl, sig_r = slc(kw["a_re"], axis=2, p=p, q=q)
-            ai_sl, sig_i = slc(kw["a_im"], axis=2, p=p, q=q)
-            kw.update(oz_a_sl=(ar_sl, ai_sl), oz_a_scale=(sig_r, sig_i),
-                      oz_pq=(p, q))
+            kw.update(starts=jnp.asarray(plan.starts.astype(np.int32)),
+                      ka=kernel_a(kw["a_re"], kw["a_im"]))
         return cls(**kw)
 
     def multiply(self, x: Pair) -> Pair:
-        if self.engine == "pallas":
-            from .pallas_spmm import spmm_ell
-            return spmm_ell((self.a_re, self.a_im), x,
-                            self.ell_ia, self.ell_ix, self.ell_counts)
-        if self.oz_pq is not None and x[0].dtype == jnp.float64:
-            return spmm_pairs_oz(self.oz_a_sl, self.oz_a_scale, x,
-                                 self.pair_a, self.pair_x, self.pair_y,
-                                 self.nnzb_y, *self.oz_pq)
+        if self.engine == "pairs":
+            from .pairwalk import spmm_pairwalk
+
+            return spmm_pairwalk(self.ka, x, self.starts, self.pair_a,
+                                 self.pair_x, interpret=self.interpret)
         return spmm_pairs((self.a_re, self.a_im), x,
                           self.pair_a, self.pair_x, self.pair_y, self.nnzb_y)
 
@@ -244,7 +157,7 @@ class BlockSparseAction:
 
 jax.tree_util.register_dataclass(
     BlockSparseAction,
-    data_fields=["a_re", "a_im", "pair_a", "pair_x", "pair_y",
-                 "ell_ia", "ell_ix", "ell_counts", "oz_a_sl", "oz_a_scale"],
-    meta_fields=["nnzb_y", "lm", "ln", "engine", "oz_pq"],
+    data_fields=["a_re", "a_im", "pair_a", "pair_x", "pair_y", "starts",
+                 "ka"],
+    meta_fields=["nnzb_y", "lm", "ln", "engine", "interpret"],
 )

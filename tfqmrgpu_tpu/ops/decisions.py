@@ -24,6 +24,12 @@ import numpy as np
 # runs in float32, where the guard must sit above the f32 underflow floor.
 EPSILON = 2.5e-308
 EPSILON_F32 = 1e-35
+# the reference's convergence-probe constants (tfqmrgpu_core.hxx):
+# residual2 starts at DBL_MAX/8 and is floored at 1.4e-76; without x64 the
+# float32 path keeps representable values
+RESIDUAL2_INIT = float(np.finfo(np.float64).max) / 8
+RESIDUAL2_INIT_F32 = 1e30
+RESIDUAL_FLOOR = 1.4e-76
 
 Pair = tuple
 
@@ -35,20 +41,25 @@ def scalar_dtype():
 
 
 def breakdown_eps():
-    """Breakdown guard for |rho|^2/|z|^2/tau.
-
-    TPU has no native float64: XLA emulates it with float32 pairs, which
-    keeps ~f64 precision but only the f32 EXPONENT range.  There the
-    reference's 2.5e-308 constant itself flushes to zero, breakdown
-    detection goes dead, 1/|rho|^2 overflows to inf and the stalled columns
-    poison the iterate with NaNs (observed on v5e).  So the guard must sit
-    above the f32 underflow floor whenever f64 is emulated -- i.e. whenever
-    the backend is a TPU -- not only when x64 is off."""
+    """Breakdown guard for |rho|^2/|z|^2/tau: the reference's EPSILON in
+    float64, a value above the float32 underflow floor when x64 is off."""
     if scalar_dtype() != jnp.float64:
         return EPSILON_F32
-    if jax.default_backend() == "tpu":
-        return EPSILON_F32
     return EPSILON
+
+
+def initial_residual2():
+    """Start value of the probed max residual^2."""
+    if scalar_dtype() != jnp.float64:
+        return RESIDUAL2_INIT_F32
+    return RESIDUAL2_INIT
+
+
+def residual_floor():
+    """Underflow guard of the probed max residual^2."""
+    if scalar_dtype() != jnp.float64:
+        return EPSILON_F32
+    return RESIDUAL_FLOOR
 
 
 def _f64(x):
@@ -70,8 +81,8 @@ def dec35(status, rho: Pair, z35: Pair, out_dtype):
     z_re, z_im = z35
     abs2z = _abs2(z_re, z_im)
     abs2rho = _abs2(rho_re, rho_im)
-    # ~isfinite: insurance against overflowed upstream scalars (emulated-f64
-    # exponent range on TPU), which must freeze the RHS, not poison it
+    # ~isfinite: insurance against overflowed upstream scalars, which must
+    # freeze the RHS, not poison it
     breakdown = ((abs2z < eps) | (abs2rho < eps)
                  | ~jnp.isfinite(abs2z) | ~jnp.isfinite(abs2rho))
     denom = 1.0 / jnp.where(breakdown, 1.0, _abs2(rho_re, rho_im))

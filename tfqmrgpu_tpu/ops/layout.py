@@ -1,7 +1,7 @@
 """Data-layout conversion between host formats and the device representation.
 
 The device representation is a pair of real planes ``(re, im)``, each of
-shape ``[nnzb, LM, LN]`` -- the TPU-friendly equivalent of the reference's
+shape ``[nnzb, LM, LN]`` -- the equivalent of the reference's
 native RRRRIIII layout (tfqmrgpu.h:184).  Host-side users typically hold
 either NumPy complex arrays or RIRIRIRI-interleaved real arrays (the
 reference's default host layout, tfqmrgpu.h:186); the converters here cover
@@ -10,8 +10,9 @@ conjugation and global scaling (reference: tfqmrgpu.cu:467-645
 set_or_getMatrix + transpose_blocks_kernel in tfqmrgpu_linalg.hxx:282-380).
 
 Unlike the reference, blocks of A are NOT silently stored transposed on
-device -- the TPU kernels consume natural row-major blocks, so 'n'/'t' mean
-exactly what the user wrote.
+device -- the engines consume natural row-major blocks (the pair-walk
+kernel transposes its own f64 copy), so 'n'/'t' mean exactly what the user
+wrote.
 """
 
 from __future__ import annotations

@@ -3,13 +3,13 @@
 All functions operate on split-complex block vectors ``(re, im)`` of shape
 ``[nnzb, LM, LN]`` and per-RHS scalar fields of shape ``[nCols, LN]``.
 The RHS axis (LN lanes x nCols block columns) is the vectorization axis --
-the TPU analogue of the reference mapping RHS columns onto the fast CUDA
+the analogue of the reference mapping RHS columns onto the fast CUDA
 thread axis (tfqmrgpu_linalg.hxx:640, README.md:19-20).
 
 Reductions (dotp/nrm2) are *segmented by block column*: each nonzero block
 contributes to the slot of its compressed column index ``colindx`` -- the
 reference implements this as a grid-stride partial + log2 tree
-(tfqmrgpu_linalg.hxx:480-541); on TPU it is one ``segment_sum`` that XLA
+(tfqmrgpu_linalg.hxx:480-541); here it is one ``segment_sum`` that XLA
 lowers to an efficient sorted-segment reduction.  Per-block partial products
 are computed in the data precision and accumulated across blocks in float64,
 matching the reference's double accumulators.

@@ -1,19 +1,17 @@
-"""Panel representation: the TPU-native layout of X-shaped block vectors.
+"""Panel representation: the dense engine's layout of X-shaped vectors.
 
 The reference stores X-shaped vectors as lists of nonzero blocks and gathers
-per-block through index tables (colindx, subset, pair lists).  On TPU, every
-block-granularity gather/scatter/segmented-reduction lowers to pathological
-HBM traffic (measured ~13-30 GB/s on v5e vs ~800 GB/s streaming), while big
-dense ops run at speed-of-light.  So the solver works on **dense row panels**:
+per block through index tables (colindx, subset, pair lists).  The dense
+engine instead works on **dense row panels**
 
     v[mb*LM, ncc, LN]   (re, im planes)
 
 where ``ncc`` is the number of compressed (non-empty) block columns of X and
 positions outside X's sparsity pattern are zero.  Consequences:
 
-* block-SpMM  Y = A @ X  becomes one (masked) matmul against the panel --
-  the MXU contraction depth is mb*LM instead of LM, and the pattern
-  truncation of the reference's pair list (Y restricted to X's pattern,
+* block-SpMM  Y = A @ X  becomes one masked matmul of the densified A
+  against the panel (contraction depth mb*LM), and the pattern truncation
+  of the reference's pair list (Y restricted to X's pattern,
   tfqmrgpu.cu:183-230) is a cheap elementwise mask;
 * the per-column segmented reductions dotp/nrm2 (tfqmrgpu_linalg.hxx:480-541)
   collapse to plain column sums -- colindx disappears;
@@ -21,12 +19,11 @@ positions outside X's sparsity pattern are zero.  Consequences:
 * add_RHS scatter (tfqmrgpu_linalg.hxx:383-428) becomes ``v + scal * b_panel``
   with B pre-scattered into a panel once.
 
-Zeros inside the panel waste compute only in the SpMM (density factor), which
-the dense MXU path absorbs; block-sparse A is streamed by the Pallas kernel
-(pallas_spmm.py) when ``mb`` is too large to densify A.
+Zeros inside the panel waste compute only in the SpMM (density factor), so
+the solver picks this engine for small or dense operators only.
 
 This module holds the layout descriptor, pack/unpack converters, and the
-panel-form tfQMR primitives shared by the dense and Pallas engines.
+panel-form tfQMR primitives of the dense engine.
 """
 
 from __future__ import annotations
@@ -170,24 +167,11 @@ def make_panel_primitives(
 def dense_multiply(a_re, a_im, mask4, mb, lm, ncc, ln, precision):
     """Masked dense complex matmul: the 'dense' engine's SpMM.
 
-    Four real MXU matmuls with full-depth contraction (NR = mb*LM) -- the
+    Four real matmuls with full-depth contraction (NR = mb*LM) -- the
     panel-form analogue of gemmNxNf (tfqmrgpu_blockmult.hxx:10-93).
-
-    float64 operands (the 'z' mode) route through the Ozaki-scheme MXU
-    emulation (ops/ozaki.py) instead of XLA's slow elementwise-emulated
-    f64 dot -- exact bf16 slice products, ~1e-14 relative, far below the
-    solver's f64 recurrence noise.  ``TFQ_Z_OZAKI=0`` restores the XLA
-    emulated-f64 dot (and very deep contractions fall back to it)."""
-    import os as _os
-
+    float64 operands run as native f64 products."""
     nr = mb * lm
     c = ncc * ln
-    if (jnp.result_type(a_re) == jnp.float64
-            and _os.environ.get("TFQ_Z_OZAKI", "1") != "0"):
-        try:
-            return _dense_multiply_oz(a_re, a_im, mask4, mb, lm, ncc, ln)
-        except ValueError:
-            pass    # contraction too deep for exact f32 accumulation
 
     def multiply(x: Pair) -> Pair:
         dt = x[0].dtype
@@ -197,46 +181,6 @@ def dense_multiply(a_re, a_im, mask4, mb, lm, ncc, ln, precision):
                                       preferred_element_type=dt)
         yr = mm(a_re, xr) - mm(a_im, xi)
         yi = mm(a_re, xi) + mm(a_im, xr)
-        y = (yr.reshape(nr, ncc, ln), yi.reshape(nr, ncc, ln))
-        return apply_mask(y, mask4, mb, lm, ncc, ln)
-
-    return multiply
-
-
-def _dense_multiply_oz(a_re, a_im, mask4, mb, lm, ncc, ln, bits=53):
-    """'z' dense SpMM on the bf16 MXU via the Ozaki scheme: p(p+1)/2
-    exact bf16 slice products per real matmul + f64 combine (see
-    ops/ozaki.py).  A-side slices are built once here and closed over;
-    X-side slices are rebuilt per call (p elementwise-f64 passes)."""
-    from . import ozaki
-
-    nr, cc = mb * lm, ncc * ln
-    # dual-spare-binade sizing (slice_params_comp): every product is
-    # f64-converted individually here (no in-f32 diagonal sums), so only
-    # per-product exactness binds -- q rises one bit over slice_params
-    # and the kept-product count p(p+1)/2 drops 20-38%
-    p, q = ozaki.slice_params_comp(nr, bits)  # raises when nr is too deep
-    ar_sl, sig_r = ozaki.slice_operand(a_re, axis=1, p=p, q=q,
-                                       spare_binade=True)
-    ai_sl, sig_i = ozaki.slice_operand(a_im, axis=1, p=p, q=q,
-                                       spare_binade=True)
-    s_idx, t_idx = (jnp.asarray(v) for v in ozaki.slice_pairs(p))
-
-    def multiply(x: Pair) -> Pair:
-        xr = x[0].reshape(nr, cc).astype(jnp.float64)
-        xi = x[1].reshape(nr, cc).astype(jnp.float64)
-        xr_sl, tau_r = ozaki.slice_operand(xr, axis=0, p=p, q=q,
-                                           spare_binade=True)
-        xi_sl, tau_i = ozaki.slice_operand(xi, axis=0, p=p, q=q,
-                                           spare_binade=True)
-
-        def prod(a_sl, x_sl):
-            return ozaki.oz_products(a_sl, x_sl, s_idx, t_idx, p, q)
-
-        yr = (prod(ar_sl, xr_sl) * (sig_r * tau_r)
-              - prod(ai_sl, xi_sl) * (sig_i * tau_i))
-        yi = (prod(ar_sl, xi_sl) * (sig_r * tau_i)
-              + prod(ai_sl, xr_sl) * (sig_i * tau_r))
         y = (yr.reshape(nr, ncc, ln), yi.reshape(nr, ncc, ln))
         return apply_mask(y, mask4, mb, lm, ncc, ln)
 

@@ -1,45 +1,53 @@
 """Multi-device / multi-host layer (new territory -- absent in the reference,
 which is single-GPU: tfqmrgpu_handle.hxx:4-6, SURVEY.md §5.8).
 
-Block rows of A, X and B are partitioned over a 1-D ``jax.sharding.Mesh``
-axis; each device runs the local pair-list SpMM against an X working set
-completed by halo exchange, and the per-RHS segmented reductions finish with
-a ``psum`` over the mesh.  Scalar recurrences are replicated.
+Block rows of A, X and B are partitioned over the "rows" axis of a
+``jax.sharding.Mesh`` and compressed block columns over its "cols" axis;
+each device runs the local SpMM against an X working set completed by an
+``all_gather`` over "rows", and the per-RHS segmented reductions finish
+with a ``psum``.  Scalar recurrences are replicated.  Two engines:
+
+* ``ShardedBlockListSolver`` (sharded.py): the block-list engine, any
+  sparsity pattern;
+* ``ShardedPanelSolver`` (sharded_panel.py): the dense-panel engine, for
+  small or dense operators.
 """
 
 from .partition import RowPartition, partition_plan
-from .sharded import ShardedAction, sharded_solve, sharded_solve_core, \
-    make_mesh
+from .sharded import (ShardedBlockListSolver, sharded_solve,
+                      sharded_solve_core, make_mesh)
 from .sharded_panel import ShardedPanelSolver
-from .sharded_pairs import ShardedPairsSolver
-from .sharded_rowtile import ShardedRowTileSolver
 
-__all__ = ["RowPartition", "partition_plan", "ShardedAction",
-           "sharded_solve", "sharded_solve_core", "make_mesh",
-           "ShardedPanelSolver", "ShardedPairsSolver",
-           "ShardedRowTileSolver"]
+__all__ = ["RowPartition", "partition_plan", "ShardedBlockListSolver", "sharded_solve", "sharded_solve_core",
+           "make_mesh", "ShardedPanelSolver", "solve_sharded",
+           "choose_sharded_engine"]
+
+SHARDED_ENGINES = ("auto", "panel", "blocklist")
+
+
+def choose_sharded_engine(plan) -> str:
+    """'panel' where the single-device solver would pick 'dense' (small or
+    dense A), else 'blocklist'."""
+    from ..solver import choose_engine
+
+    dense = choose_engine(plan, plan.lm, plan.ln, "c") == "dense"
+    return "panel" if dense else "blocklist"
 
 
 def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
                   engine: str = "auto", precision: str = "c",
-                  tolerance: float = 1e-5, max_iterations: int = 300,
-                  r_tile: int = 0, interpret=None):
+                  tolerance: float = 1e-5, max_iterations: int = 300):
     """One-call mesh-sharded solve: returns (X blocks complex, info dict).
 
-    The multi-chip analogue of ``tfqmrgpu_tpu.solve``: builds the plan,
-    shards A/X/B over a 1-D "rows" mesh (``mesh`` or ``n_devices``, default
-    all local devices), and solves with a sharded engine:
-
-    * 'rowtile' -- union-ELL row slabs, X panel resident per shard
-      (fastest when the X panel fits VMEM);
-    * 'pairs'   -- pair-plan Pallas panels with t_step batching and the
-      local/remote halo-overlap tile split;
-    * 'auto'    -- 'rowtile' when the X panel fits, else 'pairs'.
+    The multi-device analogue of ``tfqmrgpu_tpu.solve``: builds the plan,
+    shards A/X/B over a "rows" mesh (``mesh``, or ``n_devices`` by 1,
+    default all local devices), and solves with a sharded engine:
+    'panel', 'blocklist', or 'auto' (``choose_sharded_engine``).
 
     precision 'c' iterates in float32; precision 'm' additionally refines
-    to f64 residuals (one emulated-f64 SpMM per round, sharded f32
-    correction solves -- see ``parallel.mixed``).  Stopping is globally
-    synchronized and bit-identical to one device.
+    to f64 residuals (one f64 SpMM per round, sharded f32 correction
+    solves -- see ``parallel.mixed``).  Stopping is globally synchronized
+    and bit-identical to one device.
     """
     import numpy as np
 
@@ -48,8 +56,7 @@ def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
                          "precision 'c', or 'm' for f64-residual "
                          "refinement; plain 'z' runs on one device")
     plan, sp, eng = _build_sharded(a, x, b, mesh=mesh, n_devices=n_devices,
-                                   engine=engine, r_tile=r_tile,
-                                   interpret=interpret)
+                                   engine=engine)
     if precision == "m":
         from .mixed import solve_sharded_mixed
 
@@ -68,35 +75,24 @@ def solve_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
 
 
 def _build_sharded(a, x, b, *, mesh=None, n_devices: int = 0,
-                   engine: str = "auto", r_tile: int = 0, interpret=None):
+                   engine: str = "auto"):
     """Shared plumbing of solve_sharded: plan + engine pick + solver."""
     import jax
 
     from ..plan import create_plan
-    from .sharded_pairs import ShardedPairsSolver
-    from .sharded_rowtile import ShardedRowTileSolver
 
+    if engine not in SHARDED_ENGINES:
+        raise ValueError(f"unknown sharded engine {engine!r}; "
+                         f"one of {SHARDED_ENGINES}")
     if mesh is None:
         mesh = make_mesh(int(n_devices) or len(jax.devices()), 1)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     plan = create_plan(a, x, b)
     lm = a.slow_block_dim or b.slow_block_dim
     ln = b.fast_block_dim or lm
     plan.lm, plan.ln = int(lm), int(ln)
-    eng = engine
-    if eng == "auto":
-        x_panel_bytes = 2 * plan.nrows * plan.lm * plan.ncols * plan.ln * 4
-        eng = "rowtile" if (plan.lm >= 8
-                            and x_panel_bytes <= (90 << 20)) else "pairs"
-    if eng == "rowtile":
-        sp = ShardedRowTileSolver(plan, mesh, r_tile=r_tile,
-                                  interpret=interpret)
-    elif eng == "pairs":
-        sp = ShardedPairsSolver(plan, mesh, interpret=interpret)
+    eng = choose_sharded_engine(plan) if engine == "auto" else engine
+    if eng == "panel":
+        sp = ShardedPanelSolver(plan, mesh, precision="c")
     else:
-        raise ValueError(f"unknown sharded engine {engine!r}")
+        sp = ShardedBlockListSolver(plan, mesh, precision="c")
     return plan, sp, eng
-
-
-__all__.append("solve_sharded")

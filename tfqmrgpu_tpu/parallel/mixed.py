@@ -2,11 +2,11 @@
 f64-residual iterative refinement.
 
 The reference declares precision 'm' but never enabled it
-(tfqmrgpu.cu:42 "mixed precision is still buggy"); the single-device TPU
+(tfqmrgpu.cu:42 "mixed precision is still buggy"); the single-device
 pipeline lives in ``solver.solve_mixed``/``refine_mixed``.  This module is
-its multi-device analogue: the correction solves run on the sharded f32
-engines (rowtile/pairs over the mesh), while one emulated-f64 SpMM per
-round measures the true residual.  The refinement loop is host-driven and
+its multi-device analogue: the correction solves run on a sharded f32
+engine (panel or block-list over the mesh), while one f64 SpMM per round
+measures the true residual.  The refinement loop is host-driven and
 cheap (a handful of rounds); the sharded engine does all the iteration
 work.
 """
@@ -28,7 +28,7 @@ def solve_sharded_mixed(a, x, b, plan, sp, *, tolerance: float = 1e-9,
     Args:
       a, x, b: the BSR operands (complex128 data on ``a``/``b``).
       plan: the analyzed Plan (lm/ln set).
-      sp: a sharded solver (ShardedRowTileSolver / ShardedPairsSolver)
+      sp: a sharded solver (ShardedPanelSolver / ShardedBlockListSolver)
           built over ``plan`` and a mesh; its ``solve`` must accept
           ``rhs_xshaped``.
 
@@ -53,9 +53,8 @@ def solve_sharded_mixed(a, x, b, plan, sp, *, tolerance: float = 1e-9,
                           tolerance=max(c_tolerance, tolerance),
                           max_iterations=maxit_c)
 
-    # f64 residual operator (XLA pair-list engine; f64 operands route
-    # through the Ozaki bf16 slice products, ops/blocksparse.spmm_pairs_oz
-    # -- one multiply per round, off the iteration hot path)
+    # f64 residual operator (XLA pair-list engine, native f64 products --
+    # one multiply per round, off the iteration hot path)
     a_re64, a_im64 = lops.complex_to_planes(a.data, np.float64)
     act = BlockSparseAction.from_plan(plan, a_re64, a_im64, engine="xla",
                                       ln=ln)

@@ -11,8 +11,8 @@ This module provides those three primitives plus an initialize wrapper:
     import tfqmrgpu_tpu.parallel.multihost as mh
     mh.initialize("10.0.0.1:1234", num_processes=4, process_id=rank)
     mesh = mh.global_mesh(pr=jax.device_count())
-    # ... ShardedPairsSolver(plan, mesh) works unchanged: it routes its
-    # operands through put_global / gather_global automatically.
+    # ... ShardedBlockListSolver(plan, mesh) works unchanged: it routes
+    # its operands through put_global / gather_global.
 
 Every process must execute the same host code (the pack is deterministic,
 so all processes compute identical schedules and operands) -- the standard
@@ -43,12 +43,10 @@ def is_multiprocess() -> bool:
 
 
 def global_mesh(pr: int, pc: int = 1) -> "jax.sharding.Mesh":
-    """Mesh over the GLOBAL device list (all processes)."""
+    """(rows, cols) mesh over the GLOBAL device list (all processes)."""
     from jax.sharding import Mesh
 
     devs = np.array(jax.devices()[: pr * pc]).reshape(pr, pc)
-    if pc == 1:
-        return Mesh(devs.reshape(pr), ("rows",))
     return Mesh(devs, ("rows", "cols"))
 
 

@@ -16,21 +16,17 @@ The reference has no distributed layer at all (single GPU, one stream:
 tfqmrgpu_handle.hxx:4-6); this module is the new-design territory called out
 in SURVEY.md §5.8.
 
-**This is the CORRECTNESS path, not a performance path.**  The SpMM here
-gathers A/X blocks PER PAIR inside ``shard_map`` (random-access gathers run
-~13 GB/s on TPU and scatters serialize); it exists to pin down the
-distributed semantics -- iteration parity, probe timing, per-RHS status --
-in reference-shaped data structures.  For throughput use the sharded MXU
-engines: ``sharded_panel.ShardedPanelSolver`` (dense panels) or
-``sharded_pairs.ShardedPairsSolver`` (Pallas union-ELL panels with halo
-overlap).
+The SpMM is the single-device 'xla' engine's (gather per pair, batched
+matmul, segment sum) on each shard, so this engine handles any sparsity
+pattern; ``sharded_panel.ShardedPanelSolver`` is the dense-panel
+alternative for small or dense operators.  ``ShardedBlockListSolver`` is
+the host driver with the same ``solve`` interface as the panel solver.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -42,13 +38,9 @@ from ..core import TfqmrPrimitives
 from ..ops import decisions
 from ..ops.blocksparse import MATMUL_PRECISION
 from ..ops.linalg import set_unit_blocks
-from .partition import (RowPartition, shard_a_array, shard_b_array,
-                        shard_blocks_array, unshard_blocks_array)
-
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # older jax
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from .partition import (RowPartition, partition_plan, shard_a_array,
+                        shard_b_array, shard_blocks_array,
+                        unshard_blocks_array)
 
 
 def make_mesh(pr: int, pc: int = 1, devices=None) -> Mesh:
@@ -56,6 +48,11 @@ def make_mesh(pr: int, pc: int = 1, devices=None) -> Mesh:
     if devices.size < pr * pc:
         raise ValueError(f"need {pr * pc} devices, have {devices.size}")
     return Mesh(devices[: pr * pc].reshape(pr, pc), axis_names=("rows", "cols"))
+
+
+def shard_devices(arr) -> list:
+    """Ids of the devices that hold a shard of ``arr``."""
+    return sorted({s.device.id for s in arr.addressable_shards})
 
 
 def _sq(x):
@@ -197,7 +194,7 @@ def sharded_solve_core(
     r_ = P("rows")
     c_ = P("cols")
     rep = P()
-    return shard_map(
+    return jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(r_, r_, rc, rc, rc, rc, rc, rc, rc, rc, rc, c_, rc),
@@ -207,52 +204,79 @@ def sharded_solve_core(
       pair_a, pair_xg, pair_y, col_valid, b_valid)
 
 
-@dataclasses.dataclass
-class ShardedAction:
-    """Host-facing driver bundling the partition with device arrays."""
-
-    part: RowPartition
-    mesh: Mesh
-    a_re: jax.Array
-    a_im: jax.Array
-
-    @classmethod
-    def from_plan(cls, plan, part: RowPartition, mesh: Mesh, a_re, a_im):
-        return cls(part=part, mesh=mesh,
-                   a_re=jnp.asarray(shard_a_array(part, np.asarray(a_re))),
-                   a_im=jnp.asarray(shard_a_array(part, np.asarray(a_im))))
-
-
 def sharded_solve(plan, part: RowPartition, mesh: Mesh, a_re, a_im,
                   b_re, b_im, tolerance: float = 1e-6,
                   max_iterations: int = 999, rhs_trivial: bool = False,
                   seed: int = core.RANDOM_SEED):
     """End-to-end sharded solve; returns (x_re, x_im global [nnzbX, LM, LN],
     result dict)."""
+    from .multihost import gather_global, put_global
+
     lm, ln = part.lm, part.ln
     v3 = core.make_shadow_vector(plan.nnzb_x, lm, ln, seed)
-    v3s = (shard_blocks_array(part, np.asarray(v3[0])),
-           shard_blocks_array(part, np.asarray(v3[1])))
-    act = ShardedAction.from_plan(plan, part, mesh, a_re, a_im)
-    bs = (shard_b_array(part, np.asarray(b_re)),
-          shard_b_array(part, np.asarray(b_im)))
-    b_valid = part.b_blocks >= 0
+    rows, rc, cols = P("rows"), P("rows", "cols"), P("cols")
+    # operands enter as global arrays, so the same code runs when the mesh
+    # spans several processes
+    put = lambda arr, spec: put_global(arr, mesh, spec)
     out = sharded_solve_core(
-        mesh, act.a_re, act.a_im,
-        jnp.asarray(bs[0]), jnp.asarray(bs[1]),
-        jnp.asarray(v3s[0]), jnp.asarray(v3s[1]),
-        jnp.asarray(part.colindx_local), jnp.asarray(part.subset_local),
-        jnp.asarray(part.pair_a), jnp.asarray(part.pair_xg),
-        jnp.asarray(part.pair_y),
-        jnp.asarray(part.col_valid), jnp.asarray(b_valid),
+        mesh,
+        put(shard_a_array(part, np.asarray(a_re)), rows),
+        put(shard_a_array(part, np.asarray(a_im)), rows),
+        put(shard_b_array(part, np.asarray(b_re)), rc),
+        put(shard_b_array(part, np.asarray(b_im)), rc),
+        put(shard_blocks_array(part, np.asarray(v3[0])), rc),
+        put(shard_blocks_array(part, np.asarray(v3[1])), rc),
+        put(part.colindx_local, rc), put(part.subset_local, rc),
+        put(part.pair_a, rc), put(part.pair_xg, rc), put(part.pair_y, rc),
+        put(part.col_valid, cols), put(part.b_blocks >= 0, rc),
         tolerance, max_iterations,
         nmax=part.nmax, ncmax=part.ncmax, lm=lm, ln=ln,
         rhs_trivial=rhs_trivial,
     )
     x_re, x_im, status, iters, residuum, rhs_status, n_probes = out
-    xg_re = unshard_blocks_array(part, np.asarray(x_re), plan.nnzb_x)
-    xg_im = unshard_blocks_array(part, np.asarray(x_im), plan.nnzb_x)
     info = dict(return_status=int(status), iterations=int(iters),
                 residuum=float(residuum), n_probes=int(n_probes),
-                rhs_status=np.asarray(rhs_status))
+                rhs_status=gather_global(rhs_status, mesh),
+                shard_devices=shard_devices(x_re))
+    xg_re = unshard_blocks_array(part, gather_global(x_re, mesh),
+                                 plan.nnzb_x)
+    xg_im = unshard_blocks_array(part, gather_global(x_im, mesh),
+                                 plan.nnzb_x)
     return xg_re, xg_im, info
+
+
+class ShardedBlockListSolver:
+    """Host driver of the sharded block-list engine over a (rows, cols)
+    mesh, with the ``solve`` interface of ``ShardedPanelSolver``."""
+
+    def __init__(self, plan, mesh, precision: str = "c"):
+        self.plan = plan
+        self.mesh = mesh
+        self.pr = mesh.shape["rows"]
+        self.pc = mesh.shape["cols"]
+        self.part = partition_plan(plan, self.pr, self.pc)
+        self._part_x = None           # partition with B on X's pattern
+        self.npdt = np.float64 if precision == "z" else np.float32
+
+    def _xshaped_partition(self):
+        if self._part_x is None:
+            px = dataclasses.replace(
+                self.plan, subset=np.arange(self.plan.nnzb_x,
+                                            dtype=np.uint32),
+                nnzb_b=self.plan.nnzb_x)
+            self._part_x = (px, partition_plan(px, self.pr, self.pc))
+        return self._part_x
+
+    def solve(self, a_re, a_im, b_re, b_im, tolerance=1e-6,
+              max_iterations=999, rhs_trivial=False, rhs_xshaped=False):
+        """``rhs_xshaped=True`` takes the RHS as X-shaped blocks
+        [nnzbX, LM, LN] (mixed-refinement correction solves).  Returns
+        (x complex [nnzbX, LM, LN], info dict)."""
+        plan, part = ((self._xshaped_partition()) if rhs_xshaped
+                      else (self.plan, self.part))
+        c = lambda v: np.asarray(v, self.npdt)
+        x_re, x_im, info = sharded_solve(
+            plan, part, self.mesh, c(a_re), c(a_im), c(b_re), c(b_im),
+            tolerance=tolerance, max_iterations=max_iterations,
+            rhs_trivial=rhs_trivial)
+        return x_re + 1j * x_im, info

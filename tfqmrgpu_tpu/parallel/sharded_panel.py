@@ -1,17 +1,17 @@
-"""Mesh-sharded PANEL solver: the MXU-heavy multi-chip data path.
+"""Mesh-sharded PANEL solver: the dense engine over a device mesh.
 
 The block-list sharded solver (sharded.py) mirrors the reference-shaped
-data structures; this module shards the framework's flagship dense-panel
-engine instead (ops/panel.py): vectors are dense row panels
-``[NR, ncc, LN]`` and the block-SpMM is one full-depth masked matmul.
+data structures; this module shards the dense-panel engine instead
+(ops/panel.py): vectors are dense row panels ``[NR, ncc, LN]`` and the
+block-SpMM is one full-depth masked matmul.
 
 Sharding over a (rows, cols) mesh:
 
 * row axis: block rows of A and the panels are split into equal chunks
   (padded).  A is stored as its local row slab ``[NR_local, NR]``; the
   SpMM completes the X operand with one ``all_gather`` over "rows" (the
-  halo exchange -- for a dense slab the halo is everything, which XLA
-  overlaps with the matmul stream) and contracts on the MXU locally.
+  halo exchange -- for a dense slab the halo is everything) and contracts
+  locally.
 * col axis: compressed block columns of X/B are split; columns never
   couple in tfQMR, so A is replicated over "cols" and only the
   convergence maxima cross that axis.
@@ -33,12 +33,7 @@ from .. import core
 from ..core import TfqmrPrimitives
 from ..ops import decisions
 from ..ops.blocksparse import MATMUL_PRECISION
-from .sharded import make_mesh  # noqa: F401  (re-exported convenience)
-
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from .sharded import make_mesh, shard_devices  # noqa: F401
 
 
 def _ceil_to(n: int, k: int) -> int:
@@ -89,7 +84,7 @@ def sharded_panel_solve_core(
 
         def multiply(x):
             # halo exchange: complete X over the rows axis, then one local
-            # full-depth masked complex matmul on the MXU
+            # full-depth masked complex matmul
             xg_re = jax.lax.all_gather(x[0], "rows", axis=0, tiled=True)
             xg_im = jax.lax.all_gather(x[1], "rows", axis=0, tiled=True)
             xr = xg_re.reshape(pr * nrl, c_l)
@@ -153,7 +148,7 @@ def sharded_panel_solve_core(
                 result.rhs_status[None], result.n_probes)
 
     rc = P("rows", "cols")
-    return shard_map(
+    return jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(P("rows"), P("rows"), rc, rc, rc, rc, rc, P("cols")),
@@ -233,15 +228,18 @@ class ShardedPanelSolver:
                 out_i.reshape(self.pr, nrl, nr))
 
     def solve(self, a_blocks_re, a_blocks_im, b_blocks_re, b_blocks_im,
-              tolerance=1e-6, max_iterations=999, rhs_trivial=False):
-        dr, di = self.lay.densify_a(self.plan,
-                                    a_blocks_re.astype(self.npdt),
-                                    a_blocks_im.astype(self.npdt))
+              tolerance=1e-6, max_iterations=999, rhs_trivial=False,
+              rhs_xshaped=False):
+        """``rhs_xshaped=True`` takes the RHS as X-shaped blocks
+        [nnzbX, LM, LN] (mixed-refinement correction solves).  Returns
+        (x complex [nnzbX, LM, LN], info dict)."""
+        dr, di = self.lay.densify_a(
+            self.plan, np.asarray(a_blocks_re, self.npdt),
+            np.asarray(a_blocks_im, self.npdt))
         a_re, a_im = self._shard_a(dr, di)
-        b_re = self._shard_panel(self.lay.pack_b(
-            b_blocks_re.astype(self.npdt)))
-        b_im = self._shard_panel(self.lay.pack_b(
-            b_blocks_im.astype(self.npdt)))
+        pack = self.lay.pack_x if rhs_xshaped else self.lay.pack_b
+        b_re = self._shard_panel(pack(np.asarray(b_blocks_re, self.npdt)))
+        b_im = self._shard_panel(pack(np.asarray(b_blocks_im, self.npdt)))
         out = sharded_panel_solve_core(
             self.mesh, jnp.asarray(a_re), jnp.asarray(a_im),
             jnp.asarray(b_re), jnp.asarray(b_im),
@@ -252,9 +250,10 @@ class ShardedPanelSolver:
             mb_pad=self.mb_pad, lm=self.lm, ncc_pad=self.ncc_pad,
             ln=self.ln, rhs_trivial=rhs_trivial)
         x_re, x_im, status, iters, resid, rhs_status, n_probes = out
-        xp = self._unshard_panel(x_re) + 1j * self._unshard_panel(x_im)
-        x_blocks = self.lay.unpack_x(xp)
         info = dict(return_status=int(status), iterations=int(iters),
                     residuum=float(resid), n_probes=int(n_probes),
-                    rhs_status=np.asarray(rhs_status))
+                    rhs_status=np.asarray(rhs_status),
+                    shard_devices=shard_devices(x_re))
+        xp = self._unshard_panel(x_re) + 1j * self._unshard_panel(x_im)
+        x_blocks = self.lay.unpack_x(xp)
         return x_blocks, info

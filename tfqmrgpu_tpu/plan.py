@@ -23,7 +23,6 @@ its row in storage order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 
@@ -300,23 +299,3 @@ def create_plan(
         rowptr_a=(rowptr_a).astype(np.int32),
         colind_a=(colind_a).astype(np.int32),
     )
-
-
-def ell_pack(plan: Plan, kmax: Optional[int] = None):
-    """Regularize the ragged pair list into ELL form for the Pallas kernel.
-
-    Returns (ell_ia, ell_ix, ell_valid_counts) with shape [nnzbX, kmax]; padded
-    slots point at block 0 and are masked by the count.  The reference keeps
-    the ragged list and walks it per CUDA block (tfqmrgpu_blockmult.hxx:34);
-    TPUs want static shapes, so we pad to the max row degree.
-    """
-    counts = np.diff(plan.starts).astype(np.int32)
-    k = int(counts.max()) if kmax is None else int(kmax)
-    n = plan.nnzb_x
-    ell_ia = np.zeros((n, k), dtype=np.int32)
-    ell_ix = np.zeros((n, k), dtype=np.int32)
-    slot = np.arange(k)[None, :] < counts[:, None]
-    flat_idx = (plan.starts[:-1][:, None] + np.arange(k)[None, :])[slot]
-    ell_ia[slot] = plan.pairs[flat_idx, 0]
-    ell_ix[slot] = plan.pairs[flat_idx, 1]
-    return ell_ia, ell_ix, counts
